@@ -4,7 +4,7 @@
 // (raw_image_pipeline_ros subscribes to an image topic and hands frames to
 // the pipeline one at a time; here frames are read from storage by a pool
 // of native threads and assembled into fixed-size batches so host IO
-// overlaps with TPU compute).
+// overlaps with device compute).
 //
 // Frames are raw 8-bit buffers (Bayer or interleaved BGR) of a fixed
 // frame_bytes size, optionally with a fixed per-file header offset (e.g.

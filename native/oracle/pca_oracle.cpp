@@ -4,7 +4,7 @@
 // f32 solve, MatExpr scaled add == cv::addWeighted, THRESH_TRUNC,
 // convertTo CV_8U) against the system libopencv 4.6 and writes the
 // balanced output plus the per-frame scalars (hex floats) for
-// stage-by-stage comparison with the TPU implementation.
+// stage-by-stage comparison with the JAX implementation.
 //
 // Eigen is not installed on this machine; the reference's
 //     Eigen::Matrix2f m; m << s2, s, m2, mx;   x = m.inverse() * g;

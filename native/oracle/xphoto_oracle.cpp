@@ -1,6 +1,6 @@
 // Oracle tool: runs OpenCV 4.6 xphoto white-balance implementations
 // (SimpleWB, GrayworldWB, LearningBasedWB) on an input image and writes the
-// balanced output. Used to generate golden fixtures for the TPU
+// balanced output. Used to generate golden fixtures for the JAX
 // implementations (reference calls: raw_image_pipeline/modules/
 // white_balance.cpp:52-71).
 #include <cstdio>

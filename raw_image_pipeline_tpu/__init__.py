@@ -1,10 +1,10 @@
-"""raw_image_pipeline_tpu — TPU-native RAW-image ISP engine.
+"""raw_image_pipeline_tpu — RAW-image ISP engine in JAX/XLA.
 
-A brand-new JAX/XLA/Pallas implementation of the full ISP chain of
+A brand-new JAX/XLA implementation of the full ISP chain of
 leggedrobotics/raw_image_pipeline (debayer, flip, white balance incl. FFCC
 convolutional color constancy, color calibration, gamma, vignetting
 correction, HSV color enhancement, fisheye undistortion), re-designed for
-batched, sharded execution on TPU pod slices.
+batched, sharded execution on one to four GPUs.
 
 Public API:
     RawImagePipeline — drop-in Python API matching the reference's pybind11

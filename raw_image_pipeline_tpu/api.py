@@ -4,7 +4,7 @@
 (reference: raw_image_pipeline_python/src/raw_image_pipeline_python.cpp:14-73
 binding raw_image_pipeline.hpp:36-137), with numpy in/out. Single frames
 ([H,W] Bayer or [H,W,3] BGR) are processed like the reference; batched
-frames ([B,H,W]/[B,H,W,3]) are a TPU extension and behave exactly like a
+frames ([B,H,W]/[B,H,W,3]) are an extension and behave exactly like a
 frame-by-frame loop.
 
 Jitted pipelines are cached per (shape, encoding); setters invalidate the
@@ -44,7 +44,7 @@ class RawImagePipeline:
         calibration_path: str = "",
         color_calibration_path: str = "",
     ):
-        # use_gpu selects the reference's CUDA backend; on TPU there is one
+        # use_gpu selects the reference's CUDA backend; here there is one
         # backend. We keep the flag to select the GPU-parity demosaic
         # algorithm (MHT) like the reference GPU path would.
         self._use_gpu = use_gpu
@@ -318,7 +318,7 @@ class RawImagePipeline:
         self._set_module("undistortion", fov_scale=fov_scale)
 
     def set_undistortion_interpolation(self, mode: str) -> None:
-        """Pick which OpenCV-build remap arithmetic to replicate (TPU
+        """Pick which OpenCV-build remap arithmetic to replicate (an
         extension; the reference's output is build-dependent here):
         "lerp" (x86/IPP, default) | "fixed32" (ARM/Jetson — the
         reference's deployment) | "float" (quantization-free)."""

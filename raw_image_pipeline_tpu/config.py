@@ -27,12 +27,13 @@ Known reference quirks handled here (see SURVEY.md §8):
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
+import re
 from dataclasses import dataclass, field, replace
-from typing import Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
-import yaml
 
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_PARAMS_PATH = os.path.join(_REPO_DIR, "configs", "pipeline_params_example.yaml")
@@ -58,12 +59,12 @@ class DebayerConfig:
     # reference defaults: raw_image_pipeline.cpp:58-64
     enabled: bool = True
     encoding: str = "auto"
-    # TPU extension: which demosaic algorithm defines "the reference output".
+    # Extension: which demosaic algorithm defines "the reference output".
     # "bilinear" matches the reference CPU path (cv::demosaicing + RGB/BGR
     # swap quirk, debayer.cpp:49-74); "mht" matches the reference GPU path
     # (Malvar-He-Cutler, debayer.cpp:89-120).
     algorithm: str = "bilinear"
-    # TPU extension: 16-bit Bayer handling. "error" replicates the reference
+    # Extension: 16-bit Bayer handling. "error" replicates the reference
     # (16-bit patterns are listed but unimplemented there and throw,
     # debayer.hpp:74-81); "scale8" demosaics at 16 bits then scales to the
     # 8-bit chain (>>8).
@@ -86,7 +87,7 @@ class WhiteBalanceConfig:
     saturation_bright_thr: float = 0.8
     saturation_dark_thr: float = 0.1
     temporal_consistency: bool = True
-    # TPU extension: path to the FFCC model binary (reference hardcodes
+    # Extension: path to the FFCC model binary (reference hardcodes
     # model/default.bin, convolutional_color_constancy.cpp:16).
     ccc_model_path: str = DEFAULT_CCC_MODEL_PATH
     # CCC log-chroma origin (the reference node's setUV0 dynamic-reconfigure
@@ -160,8 +161,8 @@ class UndistortionConfig:
     # replicated bit-for-bit (ops/undistortion.remap_precompute):
     #   "lerp"    — x86/IPP fma-lerp path (this repo's cv2 oracle; default)
     #   "fixed32" — non-IPP INTER_BITS=5 integer path (ARM/Jetson builds,
-    #               the reference's deployment hardware; ~free on TPU vs
-    #               lerp's ~40 us/frame of emulated-fma work at 1080p)
+    #               the reference's deployment hardware; integer math,
+    #               no emulated fmas)
     #   "float"   — quantization-free float formulation (within 1 LSB)
     interpolation: str = "lerp"
 
@@ -231,6 +232,265 @@ class PipelineConfig:
 
 
 # ---------------------------------------------------------------------------
+# Minimal YAML reader/writer
+# ---------------------------------------------------------------------------
+#
+# The three reference schemas use a small YAML subset: block mappings,
+# plain or quoted scalars, flow lists and comments. This reader covers
+# exactly that subset with PyYAML's YAML 1.1 scalar typing (so e.g.
+# `a2: 1e-3` is the STRING "1e-3", as under yaml.safe_load — the loaders
+# below convert with float() either way), and the writer emits the same
+# subset. Keeping it here means importing the package needs no PyYAML.
+
+_YAML_NULL = ("", "~", "null", "Null", "NULL")
+_YAML_TRUE = ("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON")
+_YAML_FALSE = ("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF")
+_YAML_INT = re.compile(
+    r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+    r"|[-+]?0x[0-9a-fA-F_]+)$"
+)
+_YAML_FLOAT = re.compile(
+    r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$"
+)
+
+
+def _yaml_plain_scalar(text: str) -> Any:
+    """YAML 1.1 typing of an unquoted scalar, as PyYAML's SafeLoader
+    resolves it (sexagesimal numbers excepted)."""
+    if text in _YAML_NULL:
+        return None
+    if text in _YAML_TRUE:
+        return True
+    if text in _YAML_FALSE:
+        return False
+    if _YAML_INT.match(text):
+        v = text.replace("_", "")
+        sign = -1 if v[0] == "-" else 1
+        v = v.lstrip("+-")
+        if v.startswith("0b"):
+            return sign * int(v[2:], 2)
+        if v.startswith("0x"):
+            return sign * int(v[2:], 16)
+        if len(v) > 1 and v[0] == "0":
+            return sign * int(v, 8)
+        return sign * int(v)
+    if _YAML_FLOAT.match(text):
+        v = text.replace("_", "").lower()
+        if v.endswith(".inf"):
+            return -math.inf if v[0] == "-" else math.inf
+        if v.endswith(".nan"):
+            return math.nan
+        return float(v)
+    return text
+
+
+def _yaml_error(msg: str, lineno: int) -> ValueError:
+    return ValueError(f"YAML line {lineno}: {msg}")
+
+
+def _yaml_quoted(text: str, i: int, lineno: int) -> Tuple[str, int]:
+    """Parse a quoted scalar starting at text[i]; return (value, end)."""
+    q = text[i]
+    out = []
+    j = i + 1
+    while j < len(text):
+        c = text[j]
+        if q == "'" and c == "'":
+            if text[j + 1:j + 2] == "'":
+                out.append("'")
+                j += 2
+                continue
+            return "".join(out), j + 1
+        if q == '"' and c == "\\":
+            esc = text[j + 1:j + 2]
+            out.append({"n": "\n", "t": "\t", '"': '"', "\\": "\\",
+                        "/": "/", "0": "\0"}.get(esc, esc))
+            j += 2
+            continue
+        if q == '"' and c == '"':
+            return "".join(out), j + 1
+        out.append(c)
+        j += 1
+    raise _yaml_error("unterminated quoted scalar", lineno)
+
+
+def _yaml_flow(text: str, i: int, lineno: int) -> Tuple[Any, int]:
+    """Parse a flow list or scalar inside a flow list at text[i]."""
+    while i < len(text) and text[i] == " ":
+        i += 1
+    if text[i:i + 1] == "[":
+        items: List[Any] = []
+        i += 1
+        while True:
+            while i < len(text) and text[i] == " ":
+                i += 1
+            if text[i:i + 1] == "]":
+                return items, i + 1
+            item, i = _yaml_flow(text, i, lineno)
+            items.append(item)
+            while i < len(text) and text[i] == " ":
+                i += 1
+            if text[i:i + 1] == ",":
+                i += 1
+            elif text[i:i + 1] != "]":
+                raise _yaml_error("malformed flow list", lineno)
+    if text[i:i + 1] in ("'", '"'):
+        return _yaml_quoted(text, i, lineno)
+    j = i
+    while j < len(text) and text[j] not in ",]":
+        j += 1
+    return _yaml_plain_scalar(text[i:j].strip()), j
+
+
+def _yaml_value(text: str, lineno: int) -> Any:
+    """A complete inline value: flow list, quoted or plain scalar."""
+    if text[:1] in ("[", "'", '"'):
+        value, end = _yaml_flow(text, 0, lineno)
+        if text[end:].strip():
+            raise _yaml_error(f"trailing text {text[end:]!r}", lineno)
+        return value
+    if text == "{}":
+        return {}
+    return _yaml_plain_scalar(text)
+
+
+def _yaml_strip_comment(line: str) -> str:
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in ("'", '"'):
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def load_yaml(text: str) -> Any:
+    """Parse the YAML subset the reference schemas use (see above) into
+    dicts, lists and scalars; None for an empty document, like
+    yaml.safe_load."""
+    lines = []
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = _yaml_strip_comment(raw)
+        if not line.strip() or line.strip() in ("---", "..."):
+            continue
+        if "\t" in line[: len(line) - len(line.lstrip())]:
+            raise _yaml_error("tab indentation", lineno)
+        lines.append((len(line) - len(line.lstrip(" ")), line.strip(), lineno))
+    if not lines:
+        return None
+    if len(lines) == 1 and not re.match(r"^[^'\"\[]*?:(?:\s|$)", lines[0][1]):
+        return _yaml_value(lines[0][1], lines[0][2])
+
+    pos = 0
+
+    def block(indent: int) -> dict:
+        nonlocal pos
+        out: dict = {}
+        while pos < len(lines):
+            ind, body, lineno = lines[pos]
+            if ind < indent:
+                break
+            if ind > indent:
+                raise _yaml_error("unexpected indentation", lineno)
+            if body[:1] in ("'", '"'):
+                key, end = _yaml_quoted(body, 0, lineno)
+                rest = body[end:].lstrip()
+                if not rest.startswith(":"):
+                    raise _yaml_error("expected ':' after key", lineno)
+                rest = rest[1:].strip()
+            else:
+                m = re.match(r"^(.*?):(?:\s+(.*))?$", body)
+                if m is None:
+                    raise _yaml_error(f"expected 'key: value', got {body!r}", lineno)
+                key = _yaml_plain_scalar(m.group(1).strip())
+                rest = (m.group(2) or "").strip()
+            pos += 1
+            if rest:
+                out[key] = _yaml_value(rest, lineno)
+            elif pos < len(lines) and lines[pos][0] > indent:
+                out[key] = block(lines[pos][0])
+            else:
+                out[key] = None
+        return out
+
+    result = block(lines[0][0])
+    if pos < len(lines):
+        raise _yaml_error("unexpected dedent", lines[pos][2])
+    return result
+
+
+def _yaml_scalar_text(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    if isinstance(v, (float, np.floating)):
+        v = float(v)
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        if "." not in r and "e" in r:  # YAML 1.1 floats need a dot
+            m, e = r.split("e")
+            r = f"{m}.0e{e}"
+        return r
+    s = str(v)
+    plain_ok = (
+        s and s == s.strip() and _yaml_plain_scalar(s) == s
+        and s[0] not in "-?:,[]{}#&*!|>'\"%@`"
+        and ": " not in s and " #" not in s and "\n" not in s
+        and not s.endswith(":")
+    )
+    if plain_ok:
+        return s
+    if "\n" in s or "\\" in s:
+        return '"' + s.replace("\\", "\\\\").replace('"', '\\"').replace(
+            "\n", "\\n") + '"'
+    return "'" + s.replace("'", "''") + "'"
+
+
+def _yaml_inline(v: Any) -> str:
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_inline(x) for x in v) + "]"
+    if isinstance(v, dict):
+        if v:
+            raise ValueError("nested mappings inside flow lists are not supported")
+        return "{}"
+    return _yaml_scalar_text(v)
+
+
+def dump_yaml(obj: dict) -> str:
+    """Write a mapping as block YAML with flow lists — the subset
+    load_yaml reads (and yaml.safe_load reads identically)."""
+
+    def emit(node: dict, indent: int, out: List[str]) -> None:
+        for k, v in node.items():
+            key = _yaml_scalar_text(k)
+            if isinstance(v, dict) and v:
+                out.append(" " * indent + f"{key}:")
+                emit(v, indent + 2, out)
+            else:
+                out.append(" " * indent + f"{key}: {_yaml_inline(v)}")
+
+    lines: List[str] = []
+    emit(obj, 0, lines)
+    return "\n".join(lines) + "\n"
+
+
+def _read_yaml(path: str) -> dict:
+    with open(path) as f:
+        return load_yaml(f.read()) or {}
+
+
+# ---------------------------------------------------------------------------
 # YAML loaders
 # ---------------------------------------------------------------------------
 
@@ -249,8 +509,7 @@ def load_pipeline_params(path: str, base: Optional[PipelineConfig] = None) -> Pi
         # whatever modules existed (raw_image_pipeline.cpp:163-164).
         return base
 
-    with open(path) as f:
-        node = yaml.safe_load(f) or {}
+    node = _read_yaml(path)
 
     deb = node.get("debayer")
     flip = node.get("flip")
@@ -310,7 +569,7 @@ def load_pipeline_params(path: str, base: Optional[PipelineConfig] = None) -> Pi
             enabled=bool(_get(und, "enabled", False)),
             balance=float(_get(und, "balance", 0.0)),
             fov_scale=float(_get(und, "fov_scale", 1.0)),
-            # TPU extensions have no reference YAML key: carry them from
+            # Extensions have no reference YAML key: carry them from
             # `base` so a params (re)load never silently resets a
             # programmatic setting (the interpolation choice in particular
             # survives the control channel's reload_params)
@@ -329,8 +588,7 @@ def load_camera_calibration(path: str) -> CameraCalibration:
         # reference fallback values: undistortion.cpp:178-195
         return CameraCalibration(calibration_available=False)
 
-    with open(path) as f:
-        node = yaml.safe_load(f) or {}
+    node = _read_yaml(path)
 
     def mat_data(key, n, default):
         sub = node.get(key)
@@ -364,8 +622,7 @@ def load_color_calibration(path: str, base: Optional[ColorCalibrationConfig] = N
     if not os.path.exists(path):
         return replace(base, calibration_available=False)
 
-    with open(path) as f:
-        node = yaml.safe_load(f) or {}
+    node = _read_yaml(path)
 
     mat = _get(node.get("matrix"), "data", None)
     bias = _get(node.get("bias"), "data", None)
@@ -384,4 +641,4 @@ def save_color_calibration(path: str, config: ColorCalibrationConfig) -> None:
         "bias": {"rows": 3, "cols": 1, "data": [float(x) for x in config.bias]},
     }
     with open(path, "w") as f:
-        yaml.safe_dump(out, f, default_flow_style=None, sort_keys=False)
+        f.write(dump_yaml(out))

@@ -29,9 +29,8 @@ class CCCModel:
     """Loaded FFCC model. `filt` and `bias` are the post-transpose arrays
     (shape (width, height)) exactly as the reference holds them in memory.
 
-    The response convolution is computed on TPU as DFT-by-matmul (the FFT
-    custom-call is unavailable on TPU runtimes, and a 256-point DFT is a
-    perfect MXU matmul anyway), so the model precomputes the full complex
+    The response convolution is computed as DFT-by-matmul (ten real
+    256x256 matmuls, ops/ccc.ccc_response), so the model precomputes the full complex
     2-D DFT of the filter as two real arrays. The bias enters the response
     purely additively — IDFT(DFT(bias)) is bias itself — so its spatial
     form is all that's needed.

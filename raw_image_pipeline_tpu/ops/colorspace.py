@@ -10,7 +10,7 @@ plus BGR -> gray (float) for the CCC histogram mask
 
 Parity status (empirically measured against cv2 5.0; the assertions live in
 tests/test_pointwise_ops.py and tests/test_planar.py, plus the on-chip
-exhaustive sweeps in tools/tpu_parity_check.py):
+exhaustive device-vs-CPU sweeps in chip_smoke.py):
   * bgr_to_hsv_u8:   bit-exact (integer table arithmetic, hsv_shift=12).
   * hsv_to_bgr_u8:   bit-exact, verified against ALL 256^3 u8 HSV inputs
     (f32 chain with emulated-fma single rounding + final truncation,
@@ -20,10 +20,11 @@ exhaustive sweeps in tools/tpu_parity_check.py):
     replica of OpenCV's softfloat f32 arithmetic, see _build_lab_tables).
   * lab_to_bgr_u8: bit-exact replica of cv2 5.0's Lab2RGBinteger fixed
     point path, verified against ALL 256^3 u8 Lab inputs.
-  * bgr_to_gray_f32: exact (float32 Y = 0.299R + 0.587G + 0.114B).
+  * bgr_to_gray_f32: float32 Y = 0.299R + 0.587G + 0.114B (within
+    1e-3 of cv2; the CCC mask uses its own exact tables, ops/ccc.py).
 
 All tables are built once in numpy at import time and closed over as
-constants; XLA turns the gathers + elementwise math into fused VPU code.
+constants; XLA turns the gathers + elementwise math into fused kernels.
 """
 
 from __future__ import annotations
@@ -53,9 +54,9 @@ def _build_hsv_tables():
 
 _SDIV_TAB, _HDIV_TAB = _build_hsv_tables()
 
-# Formula-served exact tables (see ops/lut.py): the arithmetic runs on the
-# VPU; entries where device float rounding differs from the exact table are
-# patched by equality-selects.
+# Formula-served exact tables (see ops/lut.py): the arithmetic runs per
+# pixel; entries where device float rounding differs from the exact table
+# are patched by equality-selects.
 _SDIV = CorrectedTable(
     lambda v: jnp.where(
         v == 0,
@@ -79,8 +80,7 @@ def bgr_to_hsv_planes(b: jax.Array, g: jax.Array, r: jax.Array):
     u8 planes (h, s, v) out. Identical arithmetic to the packed form — the
     packed wrapper just slices/stacks around this — so every exactness
     claim below covers both. Planar callers skip the channel-minor u8
-    slice/stack passes, which dominate the packed op's TPU cost (measured
-    ~3-20x of the math itself at 1080p; see ROADMAP round-4 notes)."""
+    slice/stack passes."""
     b = b.astype(jnp.int32)
     g = g.astype(jnp.int32)
     r = r.astype(jnp.int32)
@@ -106,8 +106,7 @@ def bgr_to_hsv_u8(image: jax.Array) -> jax.Array:
 
 
 # which of tab[0..3] feeds b,g,r per sector (OpenCV sector_data, RGB order
-# reversed to BGR). Applied as elementwise selects, not gathers: gathers
-# with tiny trailing dims get 40x-padded layouts on TPU and blow HBM.
+# reversed to BGR). Applied as elementwise selects, not gathers.
 _SECTOR_DATA = (
     (1, 3, 0), (1, 0, 2), (3, 0, 1), (0, 2, 1), (0, 1, 3), (2, 1, 0)
 )
@@ -281,9 +280,9 @@ _GAMMA_TAB, _CBRT_TAB, _LAB_COEF = _build_lab_tables()
 
 
 # The pow/cbrt branches of the table formulas are served by low-degree
-# polynomials in sqrt-index space (2 VPU ops per degree vs ~30 for each
+# polynomials in sqrt-index space (2 ops per degree vs tens for each
 # transcendental); fit on host at import against the unrounded f64 curve,
-# with per-backend corrections (CorrectedTable) still guaranteeing the
+# with per-platform corrections (CorrectedTable) still guaranteeing the
 # bit-exact table values. See ops/lut.fit_branch_poly.
 _lab_gamma_i = np.arange(256, dtype=np.float64)
 _sel = _lab_gamma_i / 255.0 > 0.04045
@@ -307,9 +306,9 @@ def _lab_gamma_formula(i):
 
 
 def _cbrt_formula(i):
-    # a degree-17 sqrt-domain poly fits this table too, but measures SLOWER
-    # in the fused vignetting composite than XLA's native cbrt (negative
-    # result, v5e) — the transcendental stays
+    # a degree-17 sqrt-domain poly fits this table too; the native cbrt
+    # was the faster of the two on the first target (not measured on the
+    # H100) — the transcendental stays
     f32 = jnp.float32
     x = i.astype(f32) * f32(1.0 / (255 * (1 << _GAMMA_SHIFT)))
     f = jnp.where(
@@ -463,11 +462,8 @@ del _lab2_ig_i, _lab2_ig_x, _lab2_ig_sel
 
 
 def _lab2_inv_gamma_formula(i):
-    # pow branch poly-served in sqrt-index space (deg 10, 2 live
-    # corrections on both v5e and CPU): 150 -> 120 us/frame for the split
-    # Lab->BGR pass at 1080p B=128. The round-2 negative result ("deg-10
-    # poly slower than native pow") held only for the fully-fused
-    # roundtrip mega-kernel; the round-4 two-pass split inverted it.
+    # pow branch poly-served in sqrt-index space (deg 10, a few live
+    # corrections per platform)
     f32 = jnp.float32
     x = i.astype(f32) * f32(1.0 / 4096.0)
     if _LAB2_INV_GAMMA_POLY is not None:
@@ -505,8 +501,7 @@ _LAB2_COEF = _lab2_coeffs()
 def _trunc_div(a: jax.Array, b: int) -> jax.Array:
     """C/C++ integer division (truncation toward zero) for int32 arrays.
 
-    Integer division has no fast path on the TPU VPU; compute a float32
-    quotient estimate (error < 1 for the magnitudes used here) and repair
+    Computes a float32 quotient estimate (error < 1 for the magnitudes used here) and repair
     it exactly with one integer residue check in each direction.
     """
     f32 = jnp.float32
@@ -524,9 +519,8 @@ def _lab2_ab_to_xz(i: jax.Array) -> jax.Array:
     lin = _trunc_div(i * 108, 841) - 290  # 290 == ((BASE*16/116)*108)/841
     # the cubic branch is only selected for i > 3390, where i, i*i and
     # q*i are all non-negative (i <= AB_MAX = 28718 keeps q*i < 2^31), so
-    # the truncating /BASE divisions are exact arithmetic shifts — 2.3x
-    # faster than the float-estimate _trunc_div repair chains (vignetting
-    # composite 19.6 -> 8.7 ms/batch at 1080p B=64 on v5e). Negative i
+    # the truncating /BASE divisions are exact arithmetic shifts, cheaper
+    # than the float-estimate _trunc_div repair chains. Negative i
     # evaluate the shifts too (floor != trunc there) but are discarded by
     # the select.
     q = (i * i) >> 14

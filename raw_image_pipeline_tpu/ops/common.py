@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -66,9 +67,9 @@ def fma_f32(a, b, c):
 def lut_select(idx, table):
     """table[idx] via a binary select tree instead of a gather.
 
-    XLA's TPU gather runs at scalar rate (~9 ns/element — 56 ms/frame for a
-    256-entry LUT at 1080p); a log2(n)-deep tree of elementwise selects on
-    the index bits fuses into a single VPU pass and is effectively free.
+    A log2(n)-deep tree of elementwise selects on the index bits fuses
+    into a single elementwise pass (chosen where gathers ran at scalar
+    rate; whether a gather is faster on the H100 is not measured yet).
     `table` may be a traced array (each entry becomes a traced scalar), so
     LUT contents stay runtime parameters — no recompile when values change.
 
@@ -110,7 +111,5 @@ def seal_f32(v, rt_zero_i32):
     unknowable, as color_calibration does) or from a value that CAN be
     non-finite at runtime, e.g. q - q with q = 1.0/some_runtime_value.
     """
-    import jax
-
     bits = jax.lax.bitcast_convert_type(v, jnp.int32) ^ rt_zero_i32
     return jax.lax.bitcast_convert_type(bits, jnp.float32)

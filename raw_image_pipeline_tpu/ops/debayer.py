@@ -15,7 +15,7 @@ Two algorithms, matching the reference's two backends:
     asserted full-frame including the 2-px border ring against an
     INDEPENDENT pure-numpy float oracle written from the paper
     (tests/test_debayer.py::test_mht_matches_independent_paper_oracle).
-    The CUDA kernel itself is not runnable on TPU hosts; see
+    The OpenCV CUDA kernel itself is not used here; see
     debayer_mht's docstring for the border-convention derivation and the
     one residual caveat (outermost 1-px ring is unwritten/undefined in
     some opencv_contrib versions).
@@ -30,8 +30,8 @@ The reference CPU path additionally swaps R<->B after demosaicing
 debayer.cpp:49-52); that swap is applied by the pipeline module (not here)
 when replicating reference CPU output.
 
-Everything is pure elementwise arithmetic on shifted views — it compiles to
-fused VPU code on TPU with a single pass over HBM.
+Everything is pure elementwise arithmetic on shifted views, which XLA
+fuses into a single pass over device memory.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ ENCODING_TO_CV_CODE = {
 BAYER_ENCODINGS = tuple(ENCODING_TO_CV_CODE)
 
 # 16-bit patterns: listed by the reference but unimplemented there
-# (debayer.hpp:74-81 — SURVEY.md §8.2). Supported here as a TPU extension
+# (debayer.hpp:74-81 — SURVEY.md §8.2). Supported here as an extension
 # via debayer_bilinear16 when DebayerConfig.bayer16 != "error".
 BAYER16_ENCODINGS = (
     "bayer_bggr16", "bayer_gbrg16", "bayer_grbg16", "bayer_rggb16",
@@ -74,52 +74,6 @@ def phase_for_encoding(encoding: str) -> str:
     """Physical CFA phase (channel of sample (0,0) etc.) for a ROS encoding,
     under OpenCV's interpretation of the matching COLOR_Bayer code."""
     return _CV_PHASE[ENCODING_TO_CV_CODE[encoding]]
-
-
-# Demosaic backend selector, mirroring ccc.set_histogram_impl: "auto" runs
-# the banded-DMA Pallas kernels on TPU for eligible shapes (bit-identical
-# to the XLA stencils; bilinear measured 134 us/frame faster IN-CHAIN at
-# 1080p B=64 on v5e — 1.86 -> 1.73 ms/frame full chain) and the fused XLA
-# stencils elsewhere. Multi-device spatial sharding needs "xla": GSPMD
-# cannot partition a pallas_call — build_pipeline(spatial_shards>1) selects
-# it automatically (see docs/scaling.md). Governs both algorithms; the
-# historical name set_bilinear_impl is kept.
-_BILINEAR_IMPL = "auto"
-
-
-def set_bilinear_impl(impl: str) -> None:
-    """Select the demosaic backend (bilinear AND mht):
-    "auto" | "xla" | "pallas". Call before building pipelines — already
-    traced programs keep the backend they were traced with."""
-    global _BILINEAR_IMPL
-    if impl not in ("auto", "xla", "pallas"):
-        raise ValueError(f"unknown bilinear demosaic impl [{impl}]")
-    _BILINEAR_IMPL = impl
-
-
-def _pallas_eligible(bayer, algorithm: str = "bilinear") -> bool:
-    """Shapes the kernels handle: one batched [B, H, W] u8 layout, even
-    frame dims (per-tile parity masks), and a multiple-of-8 row tile that
-    divides H (debayer_pallas.tile_rows_for; the MHT kernel's tile caps at
-    64 for its VMEM budget). An outer vmap (multicamera) is handled by the
-    kernel wrapper's custom_vmap rule, which folds the mapped axis into
-    the grid batch axis."""
-    from raw_image_pipeline_tpu.ops.debayer_pallas import (
-        mht_tile_rows_for,
-        tile_rows_for,
-    )
-
-    rows_for = mht_tile_rows_for if algorithm == "mht" else tile_rows_for
-    return (
-        bayer.ndim == 3
-        and bayer.dtype == jnp.uint8
-        and bayer.shape[-2] % 2 == 0
-        and bayer.shape[-1] % 2 == 0
-        and rows_for(bayer.shape[-2]) is not None
-    )
-
-
-_pallas_bilinear_eligible = _pallas_eligible  # back-compat alias
 
 
 def _site_masks(h: int, w: int, phase: str, row_off: int = 0, col_off: int = 0):
@@ -142,8 +96,8 @@ def _site_masks(h: int, w: int, phase: str, row_off: int = 0, col_off: int = 0):
 def _shifts(x):
     """Zero-padded 1-px and diagonal shifted views of [..., H, W].
     Pad in the INPUT dtype (u8/u16) and let callers widen the views — the
-    padded copy is the one materialized buffer here, and padding pre-widen
-    doubles its traffic (13.2 vs 8.0 ms/batch at 1080p B=64 on v5e)."""
+    padded copy is the one materialized buffer here, and padding after
+    widening would double its traffic."""
     p = jnp.pad(x, [(0, 0)] * (x.ndim - 2) + [(1, 1), (1, 1)])
     n = p[..., :-2, 1:-1]
     s = p[..., 2:, 1:-1]
@@ -160,9 +114,9 @@ def _replicate_border(img):
     """Replace output border rows/cols with the adjacent computed ones,
     as cv::demosaicing does (verified empirically).
 
-    Concat form: each .at[].set dynamic-update-slice re-materialized the
-    whole [B,H,W,3] buffer (4 copies ~ 9.4 ms/batch at 1080p B=64 on
-    v5e); two concats of views copy the output once per axis instead."""
+    Concat form: each .at[].set dynamic-update-slice re-materializes the
+    whole [B,H,W,3] buffer; two concats of views copy the output once per
+    axis instead."""
     img = jnp.concatenate(
         [img[..., 1:2, :, :], img[..., 1:-1, :, :], img[..., -2:-1, :, :]],
         axis=-3,
@@ -204,10 +158,9 @@ def debayer_bilinear(bayer: jax.Array, phase: str) -> jax.Array:
     b = jnp.where(b_site, x, jnp.where(g_b_row, h2, jnp.where(g_r_row, v2, d4)))
 
     out = saturate_u8(jnp.stack([b, g, r], axis=-1))
-    # border replication runs on the u8 result: the 4 row/col updates are
-    # dynamic-update-slices over the whole frame, and doing them after the
-    # saturate halves their traffic (9.4 vs 14.7 ms/batch at 1080p B=64 on
-    # v5e); replication commutes with the elementwise saturate
+    # border replication runs on the u8 result, where its copies move a
+    # quarter of the int16 bytes; replication commutes with the
+    # elementwise saturate
     return _replicate_border(out)
 
 
@@ -266,8 +219,8 @@ def _mht_core(p, h, w, phase, row_off=0, col_off=0, sy=0, sx=0):
 
 
 def _edge_pad2(a):
-    """Pad 2 px on every side by edge replication (concat form — lowers
-    better than jnp.pad(mode='edge') on TPU, and only runs on tiny slabs)."""
+    """Pad 2 px on every side by edge replication (concat form; only runs
+    on the thin border slabs)."""
     a = jnp.concatenate(
         [a[..., :1, :], a[..., :1, :], a, a[..., -1:, :], a[..., -1:, :]],
         axis=-2,
@@ -325,7 +278,7 @@ def debayer_mht(bayer: jax.Array, phase: str) -> jax.Array:
 
 @partial(jax.jit, static_argnames=("phase",))
 def debayer_bilinear16(bayer: jax.Array, phase: str) -> jax.Array:
-    """Bilinear demosaic for 16-bit raw frames (TPU extension — the
+    """Bilinear demosaic for 16-bit raw frames (extension — the
     reference only lists these patterns and throws, debayer.hpp:74-81).
     Same interpolation/rounding as the 8-bit path, int32 internals.
 
@@ -352,76 +305,24 @@ def debayer_bilinear16(bayer: jax.Array, phase: str) -> jax.Array:
     return _replicate_border(out)
 
 
-def _use_pallas(bayer, algorithm: str, impl) -> bool:
-    impl = impl or _BILINEAR_IMPL
-    return impl == "pallas" or (
-        impl == "auto"
-        and jax.default_backend() == "tpu"
-        and _pallas_eligible(bayer, algorithm)
-    )
-
-
-def debayer(bayer: jax.Array, encoding: str, algorithm: str = "bilinear",
-            impl: str | None = None) -> jax.Array:
+def debayer(bayer: jax.Array, encoding: str, algorithm: str = "bilinear") -> jax.Array:
     """Demosaic by ROS encoding name, in cv2 channel conventions (BGR out,
-    before the reference's CPU R<->B swap quirk).
-
-    impl: None (module selector, see set_bilinear_impl) | "auto" | "xla" |
-    "pallas" — pipelines built for spatial sharding pass "xla" explicitly
-    (GSPMD cannot partition a pallas_call)."""
+    before the reference's CPU R<->B swap quirk)."""
     if encoding in BAYER16_ENCODINGS:
         phase = _CV_PHASE[{"bayer_bggr16": "bg", "bayer_gbrg16": "gb",
                            "bayer_grbg16": "gr", "bayer_rggb16": "rg"}[encoding]]
         return debayer_bilinear16(bayer, phase)
     phase = phase_for_encoding(encoding)
-    if algorithm in ("bilinear", "bilinear_pallas"):
-        if algorithm == "bilinear_pallas" or _use_pallas(bayer, "bilinear", impl):
-            # hand-written banded-DMA kernel; bit-identical to "bilinear"
-            # (asserted in-chain and standalone on-chip by bench.py each run)
-            from raw_image_pipeline_tpu.ops.debayer_pallas import (
-                debayer_bilinear_pallas_nhwc,
-            )
-
-            return debayer_bilinear_pallas_nhwc(bayer, phase)
+    if algorithm == "bilinear":
         return debayer_bilinear(bayer, phase)
-    if algorithm in ("mht", "mht_pallas"):
-        if algorithm == "mht_pallas" or _use_pallas(bayer, "mht", impl):
-            # banded-DMA MHT kernel; bit-identical to debayer_mht (asserted
-            # in interpret mode by tests/test_debayer_pallas.py and on-chip
-            # by bench.py's pallas_debayer_check)
-            from raw_image_pipeline_tpu.ops.debayer_pallas import (
-                debayer_mht_pallas_nhwc,
-            )
-
-            return debayer_mht_pallas_nhwc(bayer, phase)
+    if algorithm == "mht":
         return debayer_mht(bayer, phase)
     raise ValueError(f"Unknown demosaic algorithm: {algorithm}")
 
 
-def debayer_planes(bayer: jax.Array, encoding: str,
-                   algorithm: str = "bilinear", impl: str | None = None):
+def debayer_planes(bayer: jax.Array, encoding: str, algorithm: str = "bilinear"):
     """Demosaic straight to three channel planes (c0, c1, c2), identical
-    to debayer(...)[..., 0/1/2].
-
-    The Pallas kernels' output is natively planar [B, 3, H, W]; serving
-    the pipeline's planar fast path from it directly skips the NHWC
-    transpose + channel re-slicing the packed form would pay (~50 us/frame
-    at 1080p B=128 on v5e). Other backends/algorithms fall back to slicing
-    the packed output — bit-identical by construction."""
-    if encoding not in BAYER16_ENCODINGS:
-        base_alg = algorithm.replace("_pallas", "")
-        forced = algorithm.endswith("_pallas")
-        if (
-            (forced or _use_pallas(bayer, base_alg, impl))
-            and _pallas_eligible(bayer, base_alg)
-        ):
-            from raw_image_pipeline_tpu.ops.debayer_pallas import (
-                debayer_bilinear_pallas_planes,
-                debayer_mht_pallas_planes,
-            )
-
-            kernel = (debayer_mht_pallas_planes if base_alg == "mht"
-                      else debayer_bilinear_pallas_planes)
-            return kernel(bayer, phase_for_encoding(encoding))
-    img = debayer(bayer, encoding, algorithm, impl)
+    to debayer(...)[..., 0/1/2]. The planes are slices of the packed
+    stencil output, which XLA fuses into the consumers of each plane."""
+    img = debayer(bayer, encoding, algorithm)
     return img[..., 0], img[..., 1], img[..., 2]

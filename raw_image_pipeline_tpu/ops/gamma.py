@@ -4,12 +4,11 @@ The reference builds lut[i] = saturate_cast<uchar>(pow(i/255, k) * 255) and
 applies it with cv::LUT; both the "custom" and the CPU "default" method are
 this same LUT (gamma_correction.cpp:58-60).
 
-On TPU the lookup is served by evaluating pow per pixel on the VPU plus
-sparse corrections for the handful of entries where device float rounding
-differs from the exact host-built table (see ops/lut.py — gathers are
-scalar-rate on TPU). The corrections are derived at pipeline-build time on
-the executing backend and passed as runtime parameters, so changing k never
-recompiles.
+Here the lookup is served by evaluating the curve per pixel plus sparse
+corrections for the handful of entries where device float rounding
+differs from the exact host-built table (see ops/lut.py). The corrections
+are derived at pipeline-build time on the platform the pipeline is built
+for and passed as runtime parameters, so changing k never recompiles.
 """
 
 from __future__ import annotations
@@ -69,7 +68,7 @@ def gamma_correct(image: jax.Array, k: float) -> jax.Array:
 
 
 # --- polynomial-served LUT (the pipeline's fast path) -----------------------
-# pow costs ~30 VPU ops per pixel; for every practical k the 256-entry curve
+# pow costs tens of ops per pixel; for every practical k the 256-entry curve
 # fits a degree<=9 polynomial in sqrt(i/255) space whose f32 Horner is ~20
 # ops, with residual rounding differences patched by the same correction
 # machinery. Coefficients are runtime parameters (front-padded to a fixed
@@ -77,10 +76,11 @@ def gamma_correct(image: jax.Array, k: float) -> jax.Array:
 
 GAMMA_POLY_LEN = 10  # highest-degree-first, zeros-padded at the front
 
-# Runtime-parameter correction pad: every practical k measures <= 12 real
-# corrections on TPU (and <= 8 with the deg<=9 fits below), but each pad
-# entry costs a compare+select per pixel in the hot path — 16 keeps the
-# no-recompile-on-k contract at half the round-2 cost (was 32).
+# Runtime-parameter correction pad: the deg<=9 fits below stay within 8
+# mismatches by construction (fit_branch_poly's budget), plus whatever the
+# platform's rounding adds; each pad entry costs a compare+select per pixel
+# in the hot path. A platform needing more than the pad fails loudly at
+# build time (derive_corrections raises).
 GAMMA_MAX_CORR = 16
 
 

@@ -1,4 +1,4 @@
-"""cv::xphoto::LearningBasedWB — the real model, TPU-native.
+"""cv::xphoto::LearningBasedWB — the real model, in JAX.
 
 The reference calls createLearningBasedWB("") (modules/white_balance.cpp:
 66-71), which uses a default model compiled into OpenCV. This module

@@ -1,16 +1,15 @@
 """Exact small-table lookups without gathers.
 
-TPU gathers run at scalar rate (~9 ns/element — a 256-entry LUT costs
-56 ms/frame at 1080p), select trees compile for minutes, and lax.select_n
-with 256 cases doesn't compile at all. The fast exact alternative: every
-table here is generated by an arithmetic formula (pow, division, sRGB
-curve), so we evaluate the formula per pixel on the VPU and patch the few
-entries where the device's float arithmetic rounds differently from the
-reference table — corrections derived *on the executing backend* at build
-time by evaluating the formula over the whole (tiny) domain and diffing
-against the exact host table. The patched lookup is bit-exact by
-construction, costs a handful of transcendentals plus <=MAX_CORR
-equality-selects per pixel, and keeps compile times in seconds.
+Every table here is generated by an arithmetic formula (pow, division,
+sRGB curve), so instead of a per-pixel gather we evaluate the formula per
+pixel and patch the few entries where the device's float arithmetic
+rounds differently from the reference table — corrections derived *on the
+executing platform* at build time by evaluating the formula over the whole
+(tiny) domain and diffing against the exact host table. The patched lookup
+is bit-exact by construction and costs a handful of arithmetic ops plus
+<=MAX_CORR equality-selects per pixel. (This design was chosen for an
+accelerator whose gathers ran at scalar rate; whether a plain table gather
+is faster on the H100 is not measured yet.)
 """
 
 from __future__ import annotations
@@ -24,6 +23,19 @@ import numpy as np
 MAX_CORR = 32
 
 
+def current_platform() -> str:
+    """Platform that arrays and jitted calls made now default to: the
+    device of an enclosing `jax.default_device(...)`, else the default
+    backend. Per-platform corrections are keyed on this, so a CPU and a
+    GPU pipeline built in one process each get their own list
+    (jax.default_backend() alone reports the GPU even inside
+    `jax.default_device(cpu)`)."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        return jax.default_backend()
+    return dev if isinstance(dev, str) else dev.platform
+
+
 def derive_corrections(
     formula: Callable[[jax.Array], jax.Array],
     exact_table: np.ndarray,
@@ -31,7 +43,8 @@ def derive_corrections(
     pad: bool = True,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Evaluate `formula` over arange(len(exact_table)) on the current
-    default backend and return (idx, val) correction arrays.
+    default device (see current_platform) and return (idx, val)
+    correction arrays.
 
     With pad=True the arrays are padded to max_corr with idx=-1 (stable
     pytree shapes for runtime parameters); with pad=False they are exactly
@@ -82,7 +95,7 @@ def fit_branch_poly(
 ):
     """Host-side (init-time) Chebyshev fit of a smooth table branch.
 
-    Transcendentals (pow, cbrt) cost ~30 VPU ops each; every smooth curve
+    Transcendentals (pow, cbrt) cost tens of ops each; every smooth curve
     these tables serve fits a low-degree polynomial in (i/(n-1))^(1/root)
     space (root=2 absorbs x^p singularities down to p~0.5, root=3 down to
     p~0.33) whose f32 Horner evaluation is 2 ops per degree. Fitting
@@ -152,10 +165,10 @@ def poly_eval(i: jax.Array, coeffs, lo: float, hi: float, n_total: int,
 
 
 class CorrectedTable:
-    """A fixed exact table served by formula + per-backend corrections.
+    """A fixed exact table served by formula + per-platform corrections.
 
-    Corrections are derived lazily once per backend (CPU numerics differ
-    from TPU numerics, so each backend gets its own patch list).
+    Corrections are derived lazily once per platform (CPU and GPU
+    transcendentals round differently, so each gets its own patch list).
     """
 
     def __init__(self, formula: Callable, exact_table: np.ndarray,
@@ -166,12 +179,12 @@ class CorrectedTable:
         self._corr: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
 
     def _corrections(self):
-        backend = jax.default_backend()
-        if backend not in self._corr:
-            self._corr[backend] = derive_corrections(
+        platform = current_platform()
+        if platform not in self._corr:
+            self._corr[platform] = derive_corrections(
                 self.formula, self.exact, self.max_corr, pad=False
             )
-        return self._corr[backend]
+        return self._corr[platform]
 
     def __call__(self, x: jax.Array) -> jax.Array:
         idx, val = self._corrections()

@@ -116,18 +116,15 @@ def _periodic_structure(src: int, dst: int, s0: np.ndarray, s1: np.ndarray):
 def resize_linear_u8(image: jax.Array, dst_h: int, dst_w: int) -> jax.Array:
     """image: [..., H, W, C] uint8 -> [..., dst_h, dst_w, C] uint8.
 
-    Implementation (v5e, 1080p->270x360 B=64, in-dispatch marginals): when
-    the tap tables follow the periodic reduced-fraction pattern (any
+    Implementation: when the tap tables follow the periodic reduced-fraction pattern (any
     rational downscale away from clamped borders — both Alphasense feeds),
     the four jnp.take gathers are replaced by reshape + static slices with
     per-class weight vectors: identical taps, identical weights, identical
     integer arithmetic — bit-exact by construction — with zero gather
     traffic. Non-periodic shapes (upsamples, clamped borders) keep the
-    take-based formulation: horizontal-first takes = 63 us/frame, beating
-    row-select-first takes (97), the round-2 vertical-weighted form (105),
-    and strided-slice row selection, which is pathological on TPU (975 us —
-    sublane-granularity strided u8 access). OpenCV's pass order is also the
-    exactness requirement: the truncating vertical shifts do not commute."""
+    take-based formulation, horizontal pass first. OpenCV's pass order is
+    also the exactness requirement: the truncating vertical shifts do not
+    commute."""
     src_h, src_w = image.shape[-3], image.shape[-2]
     sx, sx2, a0, a1 = _tables_x(src_w, dst_w)
     sy, sy2, b0, b1 = _tables_y(src_h, dst_h)
@@ -193,24 +190,18 @@ def resize_linear_u8_plane(img: jax.Array, dst_h: int, dst_w: int) -> jax.Array:
     """Single-plane resize: [..., H, W] u8 (W in lanes) -> [..., dst_h,
     dst_w] u8. Identical arithmetic to resize_linear_u8(img[..., None])
     [..., 0] — bit-exact by the shared tables (asserted in
-    tests/test_resize_exact.py) — restructured for the TPU fast path:
+    tests/test_resize_exact.py) — restructured for planar input:
 
-      * no channel-minor axis: the packed form puts C=1 in the lane
-        dimension and tile-pads every intermediate up to 128x;
+      * no channel-minor axis of size 1;
       * vertical tap rows are selected BEFORE the horizontal pass via the
-        reverse reshape (in-group static slices — never strided sublane
-        access, which is pathological on TPU), so the horizontal pass
-        runs only on the rows the vertical combine consumes;
-      * per-class outputs concatenate lane-blocked and the final small u8
-        output un-permutes columns in one transpose.
+        reverse reshape (in-group static slices, no strided access), so
+        the horizontal pass runs only on the rows the vertical combine
+        consumes;
+      * per-class outputs concatenate and the final small u8 output
+        un-permutes columns in one transpose.
 
-    Measured (v5e, 3-plane 1080p->270x360 CCC working resize, B=128
-    K-dispatch steady): 93-126 -> ~50 us/frame STANDALONE. In the full
-    chain the swap is NEUTRAL (same-process A/B: 1286 vs 1287 us/frame)
-    — XLA's fusion already absorbs the packed form's padding when the
-    resize sits between the planar producers and the histogram — so this
-    form earns its keep for standalone/tool use, not chain throughput.
-    Non-periodic shapes fall back to the packed implementation."""
+    Not measured on the H100 against the packed form. Non-periodic shapes
+    fall back to the packed implementation."""
     src_h, src_w = img.shape[-2], img.shape[-1]
     sx, sx2, a0, a1 = _tables_x(src_w, dst_w)
     sy, sy2, b0, b1 = _tables_y(src_h, dst_h)

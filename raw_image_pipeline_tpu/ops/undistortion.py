@@ -19,12 +19,9 @@ selectable. The reference applies the remap per frame
 
 The maps are computed once per calibration and closed over as constants;
 the per-frame device work is 2 chunked row-gathers + the bilinear blend.
-The gathers are the one genuinely memory-irregular op in the ISP and run at
-the TPU gather engine's random-row wall (~70 GB/s, measured); every escape
-tried so far is a measured dead end — sliding row-band DMA and in-kernel
-take_along_axis beyond the native [8, 128] tile are Mosaic-blocked, and
-one-hot-matmul fetch is ~30x worse (see ROADMAP.md's negative-results
-list before re-attempting any of these).
+The gathers are the one genuinely memory-irregular op in the ISP. Their
+packing and chunking (DEFAULT_REMAP_TUNING below) were tuned on an earlier
+accelerator and have not been re-derived on the H100.
 
 Like the reference, the fisheye model is used for any distortion_model
 string except "none" (undistortion.cpp:199-220, SURVEY.md §8.8).
@@ -418,34 +415,28 @@ def remap_precompute(
     # fully out-of-image output pixels (all four weights zero — ~10% of a
     # fisheye undistortion's corners) still spend gather indices; pointing
     # them all at row 0 instead of their scattered clamped positions lets
-    # the gather hit one cached row (measured ~+10-15 frames/s at 1080p
-    # B=64 on v5e, bit-identical output)
+    # the gather hit one cached row (bit-identical output)
     base[(weights == 0).all(axis=0)] = 0
     return base, weights
 
 
 # Default gather tuning (slots, chunk): 2-slot pack with paired gathers,
 # 130k-index chunks — scan-tuned for the single-camera chain at 1080p B=64
-# on v5e (see _remap_rows). NEVER run this gather under jax.vmap: a batched
-# gather loses the chunked fast rate entirely and adds a huge
-# batch-independent cost (~150 ms/dispatch at 1080p x4 cameras, measured
-# round 4). Multi-camera remaps use the camera-blocked form instead
-# (n_cameras > 1 below): per-camera packs row-concatenated into one buffer
-# and the per-camera indices offset into it — one flat chunked gather,
-# same fast rate.
+# on an earlier accelerator (see _remap_rows); not re-derived on the H100.
+# Multi-camera remaps use the camera-blocked form (n_cameras > 1 below)
+# rather than a vmapped gather: per-camera packs row-concatenated into one
+# buffer and the per-camera indices offset into it — one flat chunked
+# gather.
 DEFAULT_REMAP_TUNING = (2, 130_000)
 
 # Trace-time tuning resolution (tuning=None in the wrappers): the 2-slot
 # pack halves the pack write at the cost of DOUBLING gather indices — the
-# right trade at throughput batches, the wrong one for single-frame
-# latency where the gather is INDEX-bound (round 3: ~8-9 ns/idx regardless
-# of row bytes). Measured at 1080p B=1 on v5e (round 5, same-process
-# interleaved A/B x2 processes x3 rounds, bit-identical checksums):
-# (4, one-chunk) runs the full chain ~18% faster than (2, 130k)
-# (38.5 vs 46.9 ms in a contended window). The 4-slot form engages only
-# when the flattened source has <= LATENCY_TUNING_MAX_COLS columns
-# (batch*channels — i.e. a single color frame); everything wider keeps the
-# scan-tuned throughput default.
+# trade chosen for throughput batches; a single frame, where the gather
+# is index-bound, takes the 4-slot one-gather form instead. The 4-slot
+# form engages only when the flattened source has <=
+# LATENCY_TUNING_MAX_COLS columns (batch*channels — i.e. a single color
+# frame); everything wider keeps the throughput default. Both forms are
+# bit-identical; the split point is not measured on the H100.
 LATENCY_REMAP_TUNING = (4, 2_100_000)
 LATENCY_TUNING_MAX_COLS = 4
 
@@ -457,28 +448,9 @@ def _resolve_tuning(tuning, n_cols: int) -> Tuple[int, int]:
         return LATENCY_REMAP_TUNING
     return DEFAULT_REMAP_TUNING
 
-# Blend backend selector, same convention as debayer.set_bilinear_impl —
-# but here "auto" resolves to the XLA formulation EVERYWHERE: the XLA
-# blend fuses into the gather kernel (taps never hit HBM) and measures
-# faster than the Pallas blend kernel on TPU (negative result, round 5 —
-# see ops/remap_blend_pallas.py's module docstring for the numbers).
-# "pallas" stays selectable for the record.
-_BLEND_IMPL = "auto"
-
-
-def set_remap_blend_impl(impl: str) -> None:
-    """Select the remap blend backend: "auto" | "xla" | "pallas". Call
-    before building pipelines (already-traced programs keep theirs)."""
-    global _BLEND_IMPL
-    if impl not in ("auto", "xla", "pallas"):
-        raise ValueError(f"unknown remap blend impl [{impl}]")
-    _BLEND_IMPL = impl
-
-
 def _remap_rows(arrs, base: jax.Array, weights: jax.Array,
                 h: int, w: int,
                 tuning: Tuple[int, int] | None = None,
-                blend_impl: str | None = None,
                 mode: str = "lerp") -> jax.Array:
     """Shared gather/blend core.
 
@@ -491,9 +463,7 @@ def _remap_rows(arrs, base: jax.Array, weights: jax.Array,
     tuning = (slots, chunk_size): slots=2 packs row i as the horizontal
     pair [arr[i], arr[i+1]] and fetches the vertical pair with a SECOND
     gather at base + W — half the pack write (12.5 vs 25 MB/frame) for 2x
-    gather indices; measured 322 vs 477 us/frame for the full remap at
-    1080p B=64 on v5e (the round-2 "wash" verdict inverted at the tuned
-    130k chunking). slots=4 packs all four taps in one row and spends one
+    gather indices. slots=4 packs all four taps in one row and spends one
     index per output pixel. Both are bit-identical per pixel.
     """
     f32 = jnp.float32
@@ -549,33 +519,19 @@ def _remap_rows(arrs, base: jax.Array, weights: jax.Array,
         base = (base + offs).reshape(-1)
         nw = weights.shape[1]  # 4 weight rows (float/fixed32) or 6 (lerp)
         weights = jnp.moveaxis(weights, 1, 0).reshape(nw, -1)
-    # materialize the pack exactly once: without the barrier XLA re-fuses
-    # the pack construction into each chunk's gather operand and rebuilds
-    # it per chunk (measured as the in-chain gather running at 16 ns/idx
-    # vs 9.3 ns/idx standalone)
+    # materialize the pack exactly once: without the barrier XLA may
+    # re-fuse the pack construction into each chunk's gather operand and
+    # rebuild it per chunk
     packed = jax.lax.optimization_barrier(packed)
 
-    # XLA TPU row-gathers degrade superlinearly with index count (measured
-    # on v5e at 768-byte rows: 2.07M idx -> 16.5 ns/idx, ~520k-idx chunks
-    # -> 9.3 ns/idx), so chunk the output so every single gather stays at
-    # the fast rate; the blend fuses into each gather's consumer and only
-    # the small u8 results concatenate. Chunk-size scan (v5e, 1080p B=64,
-    # planar 2-slot form): 65k->361, 130k->348, 180k->374, 260k->375,
-    # 550k->419 us/frame — 130k adopted for the single-camera default.
+    # chunk the output so every single gather stays at a bounded index
+    # count; the blend fuses into each gather's consumer and only the
+    # small u8 results concatenate.
     n = int(base.shape[0])
     n_chunks = max(1, -(-n // chunk_size))
     chunk = -(-n // n_chunks)
     # runtime zero for the blend seal (weights are finite by construction)
     rt_zero = (weights[0, 0] != weights[0, 0]).astype(jnp.int32)
-    blend_impl = blend_impl or _BLEND_IMPL
-    # "auto" == "xla": the fused gather+blend measures faster than the
-    # Pallas kernel (see module selector comment above). The kernel only
-    # implements the float epilogue; fixed32 always blends in XLA.
-    use_pallas_blend = slots == 2 and blend_impl == "pallas" and mode == "float"
-    if use_pallas_blend:
-        # per-row weight quadruples for the kernel's [rb, 4] blocks; one
-        # transpose of 16 B/row, materialized once (~0.7 us/frame at B=128)
-        wt_all = jax.lax.optimization_barrier(jnp.transpose(weights))
     outs = []
     for s in range(n_chunks):
         sl = slice(s * chunk, min((s + 1) * chunk, n))
@@ -586,19 +542,6 @@ def _remap_rows(arrs, base: jax.Array, weights: jax.Array,
         if slots == 2:
             top = jnp.take(packed, bs, axis=0)  # [Nc, 2K] u8
             bot = jnp.take(packed, bs + w, axis=0)  # [Nc, 2K] u8
-            if use_pallas_blend:
-                # one VMEM-resident pass: convert + weight FMA + round
-                # (bitwise equal to the sealed chain below; see
-                # ops/remap_blend_pallas.py and bench.py's on-chip check)
-                from raw_image_pipeline_tpu.ops.remap_blend_pallas import (
-                    blend_rows_pallas,
-                )
-
-                outs.append(blend_rows_pallas(
-                    top, bot, wt_all[sl],
-                    interpret=jax.default_backend() == "cpu",
-                ))
-                continue
             taps = (top[:, 0:k], top[:, k:2 * k],
                     bot[:, 0:k], bot[:, k:2 * k])
         else:
@@ -673,8 +616,7 @@ def _remap_rows(arrs, base: jax.Array, weights: jax.Array,
 
 
 @partial(jax.jit, static_argnames=("out_hw", "src_hw", "batch_minor",
-                                   "tuning", "n_cameras", "blend_impl",
-                                   "mode"))
+                                   "tuning", "n_cameras", "mode"))
 def remap_bilinear_u8(
     image: jax.Array, base: jax.Array, weights: jax.Array,
     out_hw: Tuple[int, int],
@@ -682,7 +624,6 @@ def remap_bilinear_u8(
     batch_minor: bool = False,
     tuning: Tuple[int, int] | None = None,
     n_cameras: int = 1,
-    blend_impl: str | None = None,
     mode: str = "lerp",
 ) -> jax.Array:
     """cv::remap(INTER_LINEAR, BORDER_CONSTANT, 0) with precomputed
@@ -693,8 +634,8 @@ def remap_bilinear_u8(
     internal layout: spatial-major means the flatten below needs no
     transposes at all).
 
-    TPU formulation: XLA's gather is index-rate-bound (~8 ns per index, no
-    matter how many bytes each index fetches), so the kernel spends ONE
+    Formulation: the gather's cost is dominated by its index count, not
+    by the bytes each index fetches, so the kernel spends ONE
     index per output pixel: the image is flattened to [H*W, batch*C] and
     the four bilinear taps pre-packed into one wide row — a single
     row-gather fetches all taps for every frame and channel at once, and
@@ -725,7 +666,7 @@ def remap_bilinear_u8(
                 image[:, :, cam * bc:(cam + 1) * bc, :].reshape(h * w, bc * c)
                 for cam in range(n_cameras)
             ]
-            out_u8 = _remap_rows(arrs, base, weights, h, w, tuning, blend_impl, mode)
+            out_u8 = _remap_rows(arrs, base, weights, h, w, tuning, mode)
             return out_u8.reshape((n_cameras, ho, wo, bc, c))
         bc = image.shape[0] // n_cameras
         arrs = [
@@ -734,7 +675,7 @@ def remap_bilinear_u8(
             ).reshape(h * w, bc * c)
             for cam in range(n_cameras)
         ]
-        out_u8 = _remap_rows(arrs, base, weights, h, w, tuning, blend_impl, mode)
+        out_u8 = _remap_rows(arrs, base, weights, h, w, tuning, mode)
         out = jnp.moveaxis(out_u8.reshape(n_cameras, ho * wo, bc, c), 2, 1)
         return out.reshape(n_cameras * bc, ho, wo, c)
 
@@ -745,7 +686,7 @@ def remap_bilinear_u8(
         lead = image.shape[:-3]
         arr = image.reshape((-1, h * w, c))
         arr = jnp.moveaxis(arr, 0, 1).reshape(h * w, -1)
-    out_u8 = _remap_rows([arr], base, weights, h, w, tuning, blend_impl, mode)
+    out_u8 = _remap_rows([arr], base, weights, h, w, tuning, mode)
 
     if batch_minor:
         return out_u8.reshape((ho, wo) + lead + (c,))
@@ -755,14 +696,13 @@ def remap_bilinear_u8(
 
 
 @partial(jax.jit, static_argnames=("out_hw", "src_hw", "tuning", "n_cameras",
-                                   "blend_impl", "mode"))
+                                   "mode"))
 def remap_bilinear_u8_planes(
     planes, base: jax.Array, weights: jax.Array,
     out_hw: Tuple[int, int],
     src_hw: Tuple[int, int] | None = None,
     tuning: Tuple[int, int] | None = None,
     n_cameras: int = 1,
-    blend_impl: str | None = None,
     mode: str = "lerp",
 ):
     """Planar batch-minor remap: tuple of [H, W, B] u8 planes ->
@@ -794,7 +734,7 @@ def remap_bilinear_u8_planes(
     planes = jax.lax.optimization_barrier(tuple(planes))
     if n_cameras == 1:
         arr = jnp.concatenate([p.reshape(h * w, -1) for p in planes], axis=1)
-        out_u8 = _remap_rows([arr], base, weights, h, w, tuning, blend_impl, mode)
+        out_u8 = _remap_rows([arr], base, weights, h, w, tuning, mode)
         lead = planes[0].shape[2:]
         return out_u8.reshape((ho, wo, c) + lead)
     # camera-major B axis: camera cam's columns are the cam-th B' block of
@@ -808,7 +748,7 @@ def remap_bilinear_u8_planes(
         )
         for cam in range(n_cameras)
     ]
-    out_u8 = _remap_rows(arrs, base, weights, h, w, tuning, blend_impl, mode)  # [C*N, c*bc]
+    out_u8 = _remap_rows(arrs, base, weights, h, w, tuning, mode)  # [C*N, c*bc]
     return out_u8.reshape((n_cameras, ho, wo, c, bc))
 
 

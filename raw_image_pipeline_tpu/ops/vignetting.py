@@ -51,11 +51,10 @@ def correct_planes(b: jax.Array, g: jax.Array, r: jax.Array, mask: jax.Array,
     composed_gamma_lab_fn below) replacing the Lab forward's sRGB
     linearization — used by the pipeline to fold the ISP gamma stage in."""
     L, a, bb = bgr_to_lab_planes(b, g, r, gamma_fn=gamma_fn)
-    # materialize the forward half's u8 planes: letting XLA fuse the whole
-    # roundtrip into one kernel costs ~40 us/frame MORE than the two-pass
-    # form at 1080p B=128 on v5e (286 vs 246 us/frame, interleaved A/B) —
-    # the fused mega-kernel spills; two u8 [H,W,B] passes are cheaper than
-    # the register pressure. Identity op, bit-exactness unaffected.
+    # materialize the forward half's u8 planes: the whole roundtrip fused
+    # into one kernel spilled on the first target, and two u8 [H,W,B]
+    # passes were cheaper (not re-measured on the H100). Identity op,
+    # bit-exactness unaffected.
     L, a, bb = jax.lax.optimization_barrier((L, a, bb))
     L = round_u8(L.astype(jnp.float32) * mask.astype(jnp.float32))
     return lab_to_bgr_planes(L, a, bb)
@@ -78,8 +77,8 @@ def correct(image: jax.Array, mask: jax.Array) -> jax.Array:
 # ONE: ctab[i] = LAB_GAMMA_TAB[gamma_lut_k[i]]. The composed table is
 # served the usual way (gamma poly -> u8 -> lab-gamma poly, with ONE
 # sparse correction set pinning the exact composed entries) — this deletes
-# the gamma stage's own correction-select chain and rint/clip per plane
-# (~35 us/frame of the stage's 70 at 1080p B=128 steady). Exactness is
+# the gamma stage's own correction-select chain and rint/clip per plane.
+# Exactness is
 # provable by 256-entry enumeration (tests/test_pointwise_ops.py) and the
 # fast-path==reference-order pipeline pin.
 # ---------------------------------------------------------------------------

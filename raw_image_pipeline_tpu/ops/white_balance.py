@@ -8,7 +8,7 @@ The reference dispatches on a method string (modules/white_balance.hpp:46-86):
   * "ccc"         -> FFCC library (see ops/ccc.py)
 
 All methods are per-frame global reductions followed by a per-pixel affine —
-on TPU the reductions are jnp sums/maxes over the spatial axes (batched over
+the reductions are jnp sums/maxes over the spatial axes (batched over
 frames; under spatial sharding they become psum-style collectives inserted
 by GSPMD), and the pixel math fuses with neighboring stages.
 
@@ -180,10 +180,10 @@ def balance_white_grey_world(image: jax.Array, thresh: float) -> jax.Array:
 #      significant bits), i.e. a single correct rounding of the exact
 #      real. Then THRESH_TRUNC at 255 and convertTo(CV_8U) = cvRound.
 #
-# TPU design: the per-pixel map depends only on c in [0,256), so the whole
+# Design: the per-pixel map depends only on c in [0,256), so the whole
 # apply is a per-frame 256-entry u8 LUT served by a select tree. The LUT
 # entries need rn_f32(x0*c^2 + x1*c) with the rounding of the EXACT value
-# — no f64 on TPU, so a small soft-float path computes it with exact
+# — without f64 (disabled by default in JAX), so a small soft-float path computes it with exact
 # multi-word integer arithmetic in 12-bit limbs (256 entries/frame: cost
 # is noise). Sums are exact u32 split-accumulations recombined into the
 # correctly rounded f32 the reference's double->float narrowing produces.
@@ -454,7 +454,7 @@ def balance_white_pca(image: jax.Array) -> jax.Array:
         # plain chain — found by the round-5 extended fuzz as a 1-LSB
         # output divergence at two LUT entries on a real frame (the
         # eager/oracle bits were 0x...46/0x...6c, the jitted ones one ulp
-        # below). No measurable TPU cost (no contraction there).
+        # below).
         s2, s, m2, m = reductions(c)
         # runtime zero the compiler cannot fold: every pca input is
         # integer-derived, so (x != x) zeros are PROVABLY false to LLVM

@@ -1,7 +1,7 @@
 """Device mesh + sharding helpers.
 
 The reference is strictly single-frame, single-device (SURVEY.md §2.6);
-scaling is a new TPU-side design:
+scaling is a new design:
 
   * axis "data"  — frames are embarrassingly parallel; batches shard over
     all chips/hosts with no collectives in the steady state.

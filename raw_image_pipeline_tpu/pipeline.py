@@ -4,7 +4,7 @@ The reference chains 8 modules in fixed order on one cv::Mat, materializing
 a full frame between stages (raw_image_pipeline.hpp:143-172). Here the whole
 chain is one pure function over a batch of frames, traced once per
 (batch, height, width, encoding) and jitted so XLA fuses the pointwise
-stages into a minimal number of HBM passes:
+stages into a minimal number of device-memory passes:
 
     isp = build_pipeline(config)
     out, state = isp(params, batch, state)
@@ -35,6 +35,7 @@ Reference-behavior notes (SURVEY.md §8):
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -60,6 +61,7 @@ from raw_image_pipeline_tpu.ops.debayer import (
     debayer_planes,
 )
 from raw_image_pipeline_tpu.ops.flip import flip as flip_op
+from raw_image_pipeline_tpu.ops.lut import current_platform
 from raw_image_pipeline_tpu.ops.resize import resize_linear_u8_plane
 from raw_image_pipeline_tpu.ops.flip import flipped_bayer_encoding
 from raw_image_pipeline_tpu.ops.gamma import (
@@ -134,11 +136,13 @@ class IspParams:
     ccc_filt_dft_re: jax.Array
     ccc_filt_dft_im: jax.Array
     ccc_bias: jax.Array
-    # CCC tuning scalars (the reference node's dynamic_reconfigure knobs):
-    # pre-scaled 255*threshold cuts + the log-chroma origin uv0 — runtime
-    # params, so retuning never recompiles (scalar 0 when CCC unused)
-    ccc_bright_cut: jax.Array
-    ccc_dark_cut: jax.Array
+    # CCC tuning (the reference node's dynamic_reconfigure knobs): the
+    # saturation-mask threshold tables ([256] f32 each, from the bright/dark
+    # thresholds — ops/ccc.gray_mask_thresholds) + the log-chroma origin
+    # uv0 — runtime params, so retuning never recompiles (scalar 0 when
+    # CCC unused)
+    ccc_gray_hi: jax.Array
+    ccc_gray_lo: jax.Array
     ccc_uv0: jax.Array
 
 
@@ -187,42 +191,17 @@ class BuiltPipeline:
     params: IspParams
     ccc_model: Optional[CCCModel]
     fn: Any  # jitted (params, pixels, state) -> (outputs dict, state)
-    # implementation backends the trace pinned per op (None = the op's
-    # module-level "auto" selector decides at trace time); set by
-    # build_pipeline from its sharding hint — see _impls_for_sharding
-    selected_impls: Optional[Dict[str, Optional[str]]] = None
 
     def __call__(self, pixels, state=None):
         return self.fn(self.params, pixels, state)
-
-
-def _impls_for_sharding(n_mesh_devices: int) -> Dict[str, Optional[str]]:
-    """Per-op implementation pins for a multi-device mesh.
-
-    GSPMD cannot partition a pallas_call — not even along the grid batch
-    axis: on a real TPU mesh the default "auto" selectors would land the
-    Pallas debayer/histogram/response kernels inside a partitioned
-    program, which JAX rejects (or silently replicates). The XLA/einsum
-    formulations partition cleanly — GSPMD shards the batch axis, inserts
-    the debayer halo exchanges for a space split, and psums the partial
-    histograms. Single-device builds keep every "auto" fast path
-    (None = defer to the module selector)."""
-    if n_mesh_devices > 1:
-        return {"demosaic": "xla", "histogram": "einsum", "response": "xla",
-                "remap_blend": "xla"}
-    return {"demosaic": None, "histogram": None, "response": None,
-            "remap_blend": None}
 
 
 def _post_flip_shape(h: int, w: int, angle: int) -> Tuple[int, int]:
     return (w, h) if angle in (90, 270) else (h, w)
 
 
-import functools
-
-
 @functools.lru_cache(maxsize=64)
-def _composed_fit_cached(k: float, backend: str):
+def _composed_fit_cached(k: float, platform: str):
     fit = gamma_poly_coeffs(k)
     if fit is None:
         return None
@@ -235,12 +214,11 @@ def _composed_fit_cached(k: float, backend: str):
 
 def _composed_gamma_fit(k: float):
     """Corrections pinning the composed gamma∘Lab-linearize table on the
-    current backend, or None when the poly path / correction budget does
-    not hold. Memoized so make_params and make_isp_fn (which must agree
-    on whether the composition engages) see the same answer."""
-    import jax as _jax
-
-    return _composed_fit_cached(k, _jax.default_backend())
+    platform the pipeline is built for (ops/lut.current_platform), or None
+    when the poly path / correction budget does not hold. Memoized per
+    platform so make_params and make_isp_fn (which must agree on whether
+    the composition engages) see the same answer."""
+    return _composed_fit_cached(k, current_platform())
 
 
 def make_params(
@@ -300,14 +278,13 @@ def make_params(
         filt_re = jnp.asarray(ccc_model.filt_dft_re)
         filt_im = jnp.asarray(ccc_model.filt_dft_im)
         ccc_bias = jnp.asarray(ccc_model.bias)
-        # f64 products narrowed to f32, matching the static path's
-        # constant-fold semantics bit-for-bit
-        bright_cut = jnp.float32(255.0 * wbc.saturation_bright_thr)
-        dark_cut = jnp.float32(255.0 * wbc.saturation_dark_thr)
+        gray_hi, gray_lo = (jnp.asarray(t) for t in ccc_ops.gray_mask_thresholds(
+            wbc.saturation_bright_thr, wbc.saturation_dark_thr
+        ))
         uv0_rt = jnp.float32(wbc.ccc_uv0)
     else:
         filt_re = filt_im = ccc_bias = zero
-        bright_cut = dark_cut = uv0_rt = zero
+        gray_hi = gray_lo = uv0_rt = zero
 
     gc = config.gamma_correction
     gamma_poly = np.zeros(GAMMA_POLY_LEN, np.float32)
@@ -361,8 +338,8 @@ def make_params(
         ccc_filt_dft_re=filt_re,
         ccc_filt_dft_im=filt_im,
         ccc_bias=ccc_bias,
-        ccc_bright_cut=bright_cut,
-        ccc_dark_cut=dark_cut,
+        ccc_gray_hi=gray_hi,
+        ccc_gray_lo=gray_lo,
         ccc_uv0=uv0_rt,
     )
 
@@ -378,15 +355,8 @@ def make_isp_fn(
     planar_internals: bool = True,
     remap_tuning: Optional[Tuple[int, int]] = None,
     n_cameras: int = 1,
-    mesh_devices: int = 1,
 ):
     """Trace-time assembly of the chain for a fixed encoding.
-
-    mesh_devices > 1 declares that the program will run over a multi-device
-    mesh: the GSPMD-partitionable op implementations are pinned (see
-    _impls_for_sharding) so the resulting program partitions instead of
-    tripping over an unpartitionable pallas_call on real multi-chip
-    hardware.
 
     Returns fn(params, pixels, state) -> (outputs, new_state) where outputs
     is a dict with "processed" and (if keep_intermediates) the reference's
@@ -439,7 +409,6 @@ def make_isp_fn(
         if gcfg.enabled and not (gcfg.gpu and gcfg.method == "default")
         else None
     )
-    impls = _impls_for_sharding(mesh_devices)
     # fold the gamma stage's u8 map into the vignetting forward's Lab
     # linearize table on the fast path (one composed table lookup, one
     # correction chain — ops/vignetting composition block). Static
@@ -494,7 +463,7 @@ def make_isp_fn(
         cpu_swap = deb.algorithm != "mht"
 
         # flip the 1-channel raw mosaic instead of the 3-channel color image
-        # (3x less data; ~10 ms/batch at 1080p B=64 on v5e) wherever the
+        # (3x less data) wherever the
         # rotated pattern has an exact demosaic equivalent — a bit-exact
         # identity on even-sized frames (flip.flipped_bayer_encoding). Debug
         # mode keeps the reference's stage order so the 00_debayer dump
@@ -513,9 +482,9 @@ def make_isp_fn(
 
         # 1. debayer — always runs; per-call encoding decides (quirk §8.1).
         # When the planar fast path will engage right after (WB is CCC or
-        # disabled), demosaic STRAIGHT to channel planes: the Pallas
-        # kernel's output is natively planar, so the packed NHWC image is
-        # never materialized at all (debayer.debayer_planes).
+        # disabled), demosaic STRAIGHT to channel planes
+        # (debayer.debayer_planes), which XLA fuses into each plane's
+        # consumers.
         planes = None
         planar_from_debayer = (
             planar_internals and not debug
@@ -529,13 +498,11 @@ def make_isp_fn(
                         img = flip_op(img, flip_angle, spatial_axes=(-2, -1))
                 enc = hoist_enc if hoist_flip else encoding
                 if planar_from_debayer:
-                    planes = debayer_planes(
-                        img, enc, deb.algorithm, impl=impls["demosaic"]
-                    )
+                    planes = debayer_planes(img, enc, deb.algorithm)
                     if cpu_swap:
                         planes = planes[::-1]
                 else:
-                    img = debayer(img, enc, deb.algorithm, impl=impls["demosaic"])
+                    img = debayer(img, enc, deb.algorithm)
                     if cpu_swap:
                         img = img[..., ::-1]
             elif encoding in _UNSUPPORTED_BAYER:
@@ -598,7 +565,7 @@ def make_isp_fn(
                     if planar_early:
                         # plane-form resize: wide lane dims + vertical-tap
                         # row preselection (ops/resize.resize_linear_u8_plane
-                        # — bit-exact, ~2x the packed C=1 form on TPU)
+                        # — bit-exact vs the packed form)
                         small = jnp.stack(
                             [
                                 resize_linear_u8_plane(
@@ -613,12 +580,12 @@ def make_isp_fn(
                             img, ccc_ops.SMALL_H, ccc_ops.SMALL_W
                         )
                     hist = ccc_ops.log_chroma_histogram_rt(
-                        small, params.ccc_bright_cut, params.ccc_dark_cut,
-                        params.ccc_uv0, impl=impls["histogram"],
+                        small, params.ccc_gray_hi, params.ccc_gray_lo,
+                        params.ccc_uv0,
                     )
                     resp = ccc_ops.ccc_response(
                         hist, params.ccc_filt_dft_re, params.ccc_filt_dft_im,
-                        params.ccc_bias, impl=impls["response"],
+                        params.ccc_bias,
                     )
                     uv = ccc_ops.response_argmax(resp)
                     if use_kalman:
@@ -677,11 +644,10 @@ def make_isp_fn(
 
         # Internal PLANAR representation (three separate u8 channel planes)
         # for the pointwise stretch: every colorspace/matrix stage slices
-        # the channel-minor u8 axis on entry and re-stacks on exit, and on
-        # TPU those passes dominate the stage's cost by 3-20x over the
-        # actual math (measured at 1080p B=64: color calibration 117 -> 6
-        # us/frame, HSV enhancer 185 -> 71, vignetting 335 -> 258
-        # standalone). Carrying planes end-to-end pays the unpack once and
+        # the channel-minor u8 axis on entry and re-stacks on exit, and
+        # those passes can cost more than the math itself (they did on the
+        # accelerator this chain was first tuned for; not measured on the
+        # H100). Carrying planes end-to-end pays the unpack once and
         # lets XLA fuse plane-in/plane-out stages with zero channel
         # shuffling. Bit-identical: the packed ops are thin slice/stack
         # wrappers around the same planar cores. Debug mode keeps the
@@ -789,7 +755,6 @@ def make_isp_fn(
             if run_undist:
                 out_hw = (calib.image_height, calib.image_width)
                 rt = {} if remap_tuning is None else {"tuning": remap_tuning}
-                rt["blend_impl"] = impls["remap_blend"]
                 rt["mode"] = config.undistortion.interpolation
                 # per-camera maps (camera-blocked build): stacked base
                 # [n_cameras, N] routes each camera block through its own
@@ -906,8 +871,6 @@ def build_pipeline(
     debug: bool = False,
     temporal_mode: str = "cameras",
     microbatch: Optional[int] = None,
-    mesh: Optional[Any] = None,
-    spatial_shards: Optional[int] = None,
 ) -> BuiltPipeline:
     """Build and jit the full ISP for one configuration.
 
@@ -915,15 +878,10 @@ def build_pipeline(
     is callable: outputs, state = pipe(pixels, state). Input pixels:
     [B, H, W] uint8 for Bayer encodings, [B, H, W, 3] for color.
 
-    mesh / spatial_shards: declare the sharding this pipeline will run
-    under so the trace pins GSPMD-partitionable op implementations
-    (pipe.selected_impls records the choice; docs/scaling.md). GSPMD
-    cannot partition a pallas_call at all — not even along the batch axis
-    — so ANY multi-device mesh (data and/or space) pins the xla/einsum
-    formulations; those partition cleanly (halo exchanges for the stencil,
-    psums for the histogram). Pass the jax.sharding.Mesh the program will
-    run over, or spatial_shards (the "space" axis size) directly — either
-    engages the pinning; single-device builds keep the Pallas fast paths.
+    The same program runs unchanged under any jax.sharding.Mesh: GSPMD
+    shards the batch (and, for a "space" axis, the rows — halo exchanges
+    for the stencils, psums for the CCC histogram) without changing a
+    single output bit (tests/test_parallel.py).
 
     temporal_mode (only relevant with CCC temporal consistency + state):
       * "cameras" — batch entries are independent streams, state is batched
@@ -934,9 +892,8 @@ def build_pipeline(
 
     microbatch: process the batch as sequential chunks of this size inside
     one dispatch (lax.map, or lax.scan when state is carried) — bounds peak
-    HBM at roughly the chunk working set, letting batches run that exceed
-    single-dispatch memory (e.g. 512x1080p pointwise chains on a 16 GB
-    chip). Bitwise identical to the unchunked program, incl. the temporal
+    device memory at roughly the chunk working set, letting batches run
+    that exceed single-dispatch memory. Bitwise identical to the unchunked program, incl. the temporal
     track. A batch that is not a multiple of `microbatch` runs its
     remainder as one extra smaller chunk (state carried through in order).
     """
@@ -954,12 +911,9 @@ def build_pipeline(
     src_hw = _post_flip_shape(
         *frame_hw, config.flip.angle if config.flip.enabled else 0
     )
-    n_mesh = 1 if mesh is None else int(mesh.size)  # total mesh devices
-    if spatial_shards is not None and spatial_shards > n_mesh:
-        n_mesh = int(spatial_shards)
     raw_fn = make_isp_fn(
         config, encoding, with_state, keep_intermediates, debug, temporal_mode,
-        remap_src_hw=src_hw, mesh_devices=n_mesh,
+        remap_src_hw=src_hw,
     )
     if microbatch:
         raw_fn = _chunked_fn(raw_fn, microbatch, with_state)
@@ -967,5 +921,4 @@ def build_pipeline(
     jitted = jax.jit(raw_fn, donate_argnums=(1,) if donate else ())
     return BuiltPipeline(
         config=config, params=params, ccc_model=ccc_model, fn=jitted,
-        selected_impls=_impls_for_sharding(n_mesh),
     )

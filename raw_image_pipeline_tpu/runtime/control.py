@@ -4,7 +4,7 @@ The reference node exposes runtime services while streaming — most
 importantly ``~reset_white_balance``, which re-arms the CCC temporal
 track (raw_image_pipeline_ros.cpp:290-295 advertising the service,
 raw_image_pipeline.cpp resetWbTemporalConsistency). This is the
-transport-agnostic equivalent for a TPU host: a TCP line protocol.
+transport-agnostic equivalent for an accelerator host: a TCP line protocol.
 
 Protocol (utf-8, newline-terminated):
 

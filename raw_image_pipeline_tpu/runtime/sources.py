@@ -173,7 +173,7 @@ class SocketFrameSource:
 
     The reference subscribes to an image transport and always processes the
     newest frame (raw_image_pipeline_ros.cpp:185-197); this is the
-    transport-agnostic equivalent for a TPU host: a listening socket whose
+    transport-agnostic equivalent for an accelerator host: a listening socket whose
     producer(s) stream length-prefixed frames (see send_frame), landing in
     a single overwrite slot (LatestFrameSource) — when the pipeline is
     slower than the producer, intermediate frames are dropped and `dropped`

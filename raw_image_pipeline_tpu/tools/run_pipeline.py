@@ -18,13 +18,13 @@ import os
 
 import cv2
 import numpy as np
-import yaml
 
 from raw_image_pipeline_tpu import RawImagePipeline
 from raw_image_pipeline_tpu.config import (
     DEFAULT_CALIBRATION_PATH,
     DEFAULT_COLOR_CALIBRATION_PATH,
     DEFAULT_PARAMS_PATH,
+    dump_yaml,
     load_camera_calibration,
     load_color_calibration,
     load_pipeline_params,
@@ -120,7 +120,7 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
     infos = make_camera_infos(api, output_frame=args.output_frame)
     with open(os.path.join(args.output_dir, "camera_info.yaml"), "w") as f:
-        yaml.safe_dump({k: v.to_dict() for k, v in infos.items()}, f)
+        f.write(dump_yaml({k: v.to_dict() for k, v in infos.items()}))
 
     names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
 
@@ -197,7 +197,7 @@ def _run_live(args):
     os.makedirs(args.output_dir, exist_ok=True)
     infos = make_camera_infos(api, output_frame=args.output_frame)
     with open(os.path.join(args.output_dir, "camera_info.yaml"), "w") as f:
-        yaml.safe_dump({k: v.to_dict() for k, v in infos.items()}, f)
+        f.write(dump_yaml({k: v.to_dict() for k, v in infos.items()}))
 
     host, _, port = args.listen.partition(":")
     src = SocketFrameSource(host or "127.0.0.1", int(port or 0))

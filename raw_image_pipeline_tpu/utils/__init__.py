@@ -1,4 +1,4 @@
 from raw_image_pipeline_tpu.utils.logging import get_logger
-from raw_image_pipeline_tpu.utils.profiling import stage_timings, trace_profile
+from raw_image_pipeline_tpu.utils.profiling import trace_profile
 
-__all__ = ["get_logger", "stage_timings", "trace_profile"]
+__all__ = ["get_logger", "trace_profile"]

@@ -6,6 +6,7 @@ convolutional_color_constancy.cpp stage by stage.
 """
 
 import cv2
+import jax
 import numpy as np
 import pytest
 
@@ -77,15 +78,43 @@ def test_histogram_parity(alphasense):
     assert 0.2 < hist.sum() <= 1.0 + 1e-6
 
 
-def test_histogram_pallas_kernel_matches_einsum(alphasense):
-    """The Pallas MXU histogram (the TPU fast path, run here through the
-    Pallas interpreter) is bitwise equal to the einsum formulation —
-    including invalid-pixel masking and the non-multiple-of-block pad."""
-    small = np.asarray(resize_linear_u8(alphasense, 270, 360))
-    batch = np.stack([small, 255 - small])  # 2nd frame: different valid set
-    ref = np.asarray(ccc.log_chroma_histogram(batch, 0.9, 0.1, impl="einsum"))
-    got = np.asarray(ccc.log_chroma_histogram(batch, 0.9, 0.1, impl="pallas"))
-    np.testing.assert_array_equal(got, ref)
+def _numpy_counts(small, bright=0.9, dark=0.1):
+    """Independent numpy count of the log-chroma histogram: cv2.log of the
+    float image (the reference's cv::log), C++ round-half-away bins, one
+    np.add.at per valid pixel."""
+    f = small.astype(np.float32)
+    gray = cv2.cvtColor(f, cv2.COLOR_BGR2GRAY)
+    include = (gray <= np.float32(255.0 * bright)) & (gray > np.float32(255.0 * dark))
+    logs = cv2.log(f)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        valid = include & np.isfinite(logs).all(-1)
+        uv0, inv_bin = np.float32(ccc.UV0), np.float32(1.0 / ccc.BIN_SIZE)
+
+        def bins(d):
+            x = (d - uv0) * inv_bin
+            r = np.where(x >= 0, np.floor(x + 0.5), np.ceil(x - 0.5))
+            return np.clip(np.nan_to_num(r), 0, 255).astype(np.int64)
+
+        u = bins(logs[..., 1] - logs[..., 2])
+        v = bins(logs[..., 1] - logs[..., 0])
+    counts = np.zeros((256, 256), np.int64)
+    np.add.at(counts, (u[valid], v[valid]), 1)
+    return counts
+
+
+@pytest.mark.parametrize("fixture", ["alphasense.png", "gehler_shi.png"])
+def test_histogram_einsum_matches_numpy_counts(fixture):
+    """The one-hot einsum histogram is the exact integer count of a plain
+    np.add.at over the same bins, times the reference's 1/(rows*cols)."""
+    img = cv2.imread(f"tests/fixtures/{fixture}")
+    small = cv2.resize(img, (ccc.SMALL_W, ccc.SMALL_H))
+    hist = np.asarray(ccc.log_chroma_histogram(small, 0.9, 0.1))
+    n_px = ccc.SMALL_W * ccc.SMALL_H
+    counts = np.rint(hist.astype(np.float64) * n_px).astype(np.int64)
+    np.testing.assert_array_equal(counts, _numpy_counts(small))
+    np.testing.assert_array_equal(
+        hist, (counts * np.float32(1.0 / n_px)).astype(np.float32)
+    )
 
 
 def test_response_and_argmax_parity(alphasense):
@@ -101,25 +130,22 @@ def test_response_and_argmax_parity(alphasense):
     assert (uv[0], uv[1]) == (x_ref, y_ref)
 
 
-def test_response_pallas_matches_xla(alphasense):
-    """The fused Pallas response kernel (the TPU fast path, run here through
-    the Pallas interpreter) produces the same argmax as the XLA matmul
-    formulation — the only property the chain consumes — and values within
-    bf16-product tolerance of it."""
-    small = np.asarray(resize_linear_u8(alphasense, 270, 360))
+@pytest.mark.parametrize("fixture", ["alphasense.png", "gehler_shi.png"])
+def test_response_argmax_default_equals_highest(fixture):
+    """The chain runs the response matmuls at DEFAULT precision (TF32 on a
+    GPU); its argmax must equal the HIGHEST-precision one. On the CPU both
+    are true f32, so this pins the code path; chip_smoke.py makes the same
+    comparison on the card."""
+    img = cv2.imread(f"tests/fixtures/{fixture}")
+    small = cv2.resize(img, (ccc.SMALL_W, ccc.SMALL_H))
     batch = np.stack([small, 255 - small, small[:, ::-1]])
     hist = ccc.log_chroma_histogram(batch, 0.9, 0.1)
-    r_x = ccc.ccc_response(
-        hist, MODEL.filt_dft_re, MODEL.filt_dft_im, MODEL.bias, impl="xla"
+    args = (hist, MODEL.filt_dft_re, MODEL.filt_dft_im, MODEL.bias)
+    got = ccc.response_argmax(ccc.ccc_response(*args))
+    want = ccc.response_argmax(
+        ccc.ccc_response(*args, precision=jax.lax.Precision.HIGHEST)
     )
-    r_p = ccc.ccc_response(
-        hist, MODEL.filt_dft_re, MODEL.filt_dft_im, MODEL.bias, impl="pallas"
-    )
-    np.testing.assert_array_equal(
-        np.asarray(ccc.response_argmax(r_p)), np.asarray(ccc.response_argmax(r_x))
-    )
-    scale = float(np.abs(np.asarray(r_x)).max())
-    assert float(np.abs(np.asarray(r_p) - np.asarray(r_x)).max()) < 0.02 * scale
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_full_ccc_parity(alphasense):
@@ -295,3 +321,40 @@ def test_ccc_retune_without_recompile(alphasense):
     )
     # and the original fn was never retraced
     assert pipe.fn._cache_size() == 1
+
+
+@pytest.fixture(scope="module")
+def all_triples_gray():
+    """cv2's f32 BGR2GRAY of every u8 triple, as [b, g, r] index order."""
+    i = np.arange(1 << 24, dtype=np.int64)
+    img = np.stack([(i >> 16) & 255, (i >> 8) & 255, i & 255], -1)
+    img = img.astype(np.float32).reshape(4096, 4096, 3)
+    return img, cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+
+
+def test_cv2_gray_is_the_fma_chain(all_triples_gray):
+    """cv2's CV_32F BGR2GRAY is fma(r, cr, fma(b, cb, rn(g*cg))) for every
+    u8 triple — the formula the mask tables are built from."""
+    img, gray = all_triples_gray
+    f64, f32 = np.float64, np.float32
+    b, g, r = (img[..., k].astype(f64) for k in range(3))
+    t = (b * ccc._GRAY_CB + (g * ccc._GRAY_CG).astype(f32)).astype(f32)
+    want = (r * ccc._GRAY_CR + t.astype(f64)).astype(f32)
+    np.testing.assert_array_equal(want, gray)
+
+
+@pytest.mark.parametrize("cut", [204.0, 25.5, 229.5, 51.0, 0.0, 255.0])
+def test_gray_mask_tables_match_cv2(all_triples_gray, cut):
+    """t[b, g] <= thresholds[r] decides cv2's `gray <= cut` exactly for
+    every u8 triple."""
+    img, gray = all_triples_gray
+    px = img.astype(np.int64)
+    t = ccc._GRAY_BG[px[..., 0] * 256 + px[..., 1]]
+    got = t <= ccc.gray_thresholds(cut)[px[..., 2]]
+    np.testing.assert_array_equal(got, gray <= np.float32(cut))
+
+
+def test_log_table_is_cv2_log():
+    """The histogram's u8 log table is exactly cv::log of the float value."""
+    x = np.arange(256, dtype=np.float32).reshape(1, -1)
+    np.testing.assert_array_equal(ccc._LOG_U8, cv2.log(x).ravel())

@@ -59,7 +59,7 @@ from raw_image_pipeline_tpu.pipeline import build_pipeline, init_state
 h, w = 272, 368
 config = ge._full_config((h, w), for_undistortion=True)
 pipe = build_pipeline(config, "bayer_gbrg8", frame_hw=(h, w),
-                      with_state=True, temporal_mode="cameras", mesh=mesh)
+                      with_state=True, temporal_mode="cameras")
 
 # deterministic global batch; each process ingests only its own half
 rng = np.random.default_rng(42)

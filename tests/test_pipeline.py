@@ -363,3 +363,65 @@ def test_flip_odd_size_frames_match_cv2():
     ref = cv2.cvtColor(ref, cv2.COLOR_RGB2BGR)
     ref = cv2.flip(ref, -1)
     np.testing.assert_array_equal(np.asarray(out["processed"][0]), ref)
+
+
+def test_corrections_keyed_on_default_device_platform():
+    """Per-platform LUT corrections follow the default device the pipeline
+    is built under, not jax.default_backend(): a pipeline built inside
+    jax.default_device(cpu) keys its tables on "cpu"."""
+    import jax
+
+    import __graft_entry__ as ge
+    from raw_image_pipeline_tpu.ops import colorspace
+    from raw_image_pipeline_tpu.ops.lut import current_platform
+    from raw_image_pipeline_tpu.pipeline import (
+        _composed_fit_cached,
+        _composed_gamma_fit,
+        build_pipeline,
+    )
+
+    cpu = jax.devices("cpu")[0]
+    with jax.default_device(cpu):
+        assert current_platform() == "cpu"
+    with jax.default_device("cpu"):
+        assert current_platform() == "cpu"
+    assert current_platform() == jax.default_backend()
+
+    hw = (32, 48)
+    with jax.default_device(cpu):
+        pipe = build_pipeline(ge._full_config(hw), "bayer_gbrg8",
+                              frame_hw=hw)
+        out, _ = pipe(np.zeros((1,) + hw, np.uint8))
+        jax.block_until_ready(out)
+    assert "cpu" in colorspace._LAB_CBRT._corr
+    with jax.default_device(cpu):
+        assert _composed_gamma_fit(0.9) is _composed_fit_cached(0.9, "cpu")
+
+
+def test_stage_scopes_and_device_time_reduction():
+    """The trace reduction's two halves: every stage scope of the compiled
+    chain is recovered from its HLO metadata, and event durations sum per
+    stage (unknown instructions under "other")."""
+    import __graft_entry__ as ge
+    from raw_image_pipeline_tpu.pipeline import build_pipeline
+    from raw_image_pipeline_tpu.utils.profiling import (
+        hlo_stage_scopes,
+        stage_device_times,
+    )
+
+    hw = (32, 48)
+    pipe = build_pipeline(ge._full_config(hw), "bayer_gbrg8", frame_hw=hw)
+    hlo = pipe.fn.lower(pipe.params, np.zeros((2,) + hw, np.uint8),
+                        None).compile().as_text()
+    scopes = hlo_stage_scopes(hlo)
+    assert {"isp_debayer", "isp_white_balance", "isp_color_calibration",
+            "isp_vignetting", "isp_color_enhancer",
+            "isp_undistortion"} <= set(scopes.values())
+    a, b = sorted(scopes)[:2]
+    got = stage_device_times([(a, 5), (b, 7), ("no-such-op", 11), (a, 1)],
+                             scopes)
+    want = {}
+    for name, dur in ((a, 6), (b, 7)):
+        want[scopes[name]] = want.get(scopes[name], 0) + dur
+    want["other"] = 11
+    assert got == want

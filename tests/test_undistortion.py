@@ -204,32 +204,6 @@ def test_remap_camera_blocked_matches_per_camera(mode_env):
             )
 
 
-def test_pallas_blend_matches_xla():
-    """The Pallas blend kernel (a recorded negative perf result — see
-    ops/remap_blend_pallas.py) must stay bit-identical to the sealed XLA
-    blend chain, batched and ragged-edge rows included."""
-    import jax.numpy as jnp
-
-    from raw_image_pipeline_tpu.ops.undistortion import (
-        remap_bilinear_u8,
-        remap_precompute,
-    )
-
-    rng = np.random.default_rng(17)
-    h, w = 60, 44
-    img = rng.integers(0, 256, (h, w, 5, 3), np.uint8)  # batch-minor
-    mx = (rng.random((h, w)) * (w + 6) - 3).astype(np.float32)
-    my = (rng.random((h, w)) * (h + 6) - 3).astype(np.float32)
-    base, weights = remap_precompute(mx, my, (h, w), mode="float")
-    args = (jnp.asarray(img), jnp.asarray(base), jnp.asarray(weights),
-            (h, w), (h, w))
-    ref = np.asarray(remap_bilinear_u8(*args, batch_minor=True,
-                                       blend_impl="xla", mode="float"))
-    got = np.asarray(remap_bilinear_u8(*args, batch_minor=True,
-                                       blend_impl="pallas", mode="float"))
-    np.testing.assert_array_equal(got, ref)
-
-
 def test_remap_lerp_exact_vs_cv2_fisheye_maps():
     """Default mode ("lerp") = cv2 5.0's x86/IPP fma-lerp arithmetic:
     bit-exact on the real fisheye maps over full frames (the old float
@@ -485,9 +459,8 @@ def test_auto_tuning_latency_form_bitwise_equal():
     """tuning=None resolves by flattened source width: a single color frame
     (3 columns) engages the 4-slot latency form, wider batches keep the
     2-slot throughput default — and both forms are bit-identical to the
-    cv2 golden and to each other (round-5 B=1 latency finding: the 4-slot
-    pack spends half the gather indices and measured ~18% faster full-chain
-    at B=1 on v5e; see ROADMAP.md)."""
+    cv2 golden and to each other (the 4-slot pack spends half the gather
+    indices at B=1)."""
     import jax.numpy as jnp
 
     from raw_image_pipeline_tpu.ops.undistortion import (
